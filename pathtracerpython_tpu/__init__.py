@@ -1,4 +1,4 @@
-"""pathtracerpython_tpu — a TPU-native differentiable wavefront path tracer.
+"""pathtracerpython_tpu — a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 ``thiagoald/pathtracerpython`` (a pure-Python CPU Cornell-box path tracer):
@@ -10,7 +10,8 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 - ``render``   — the wavefront integrator: per-bounce intersect → shade(NEE)
                  → scatter over a flat ray SoA (replaces ``main.py``'s
                  multiprocessing Pool phases).
-- ``kernels``  — Pallas TPU megakernels for the nearest-hit / any-hit sweeps.
+- ``kernels``  — culled Triton (Pallas) kernels for the GPU nearest-hit /
+                 any-hit sweeps.
 - ``parallel`` — device-mesh sharding (pixels/samples DP, geometry ring).
 - ``diff``     — differentiable rendering + finite-difference harnesses.
 - ``utils``    — RNG, profiling, checkpointing helpers.

@@ -21,7 +21,7 @@ import os
 
 
 def run(
-    scene_path: str = "/root/reference/objs/cornellroom.sdl",
+    scene_path: str | None = None,  # None = the packaged Cornell box
     steps: int = 80,
     lr: float = 0.02,
     offset: tuple = (0.15, -0.1, 0.2),
@@ -39,10 +39,10 @@ def run(
     from pathtracerpython_tpu.render.config import RenderConfig
     from pathtracerpython_tpu.render.image import radiance_to_image, save_png
     from pathtracerpython_tpu.render.integrator import render
-    from pathtracerpython_tpu.scene import load_scene
+    from pathtracerpython_tpu.scene import cornell_sdl, load_scene
 
     os.makedirs(out_dir, exist_ok=True)
-    scene = load_scene(scene_path)
+    scene = load_scene(scene_path or cornell_sdl())
     cfg = RenderConfig(mode="fast", n_samples=spp, n_bounces=bounces)
 
     target = render(scene, cfg, seed=seed)
@@ -77,7 +77,8 @@ def run(
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--scene", default="/root/reference/objs/cornellroom.sdl")
+    p.add_argument("--scene", default=None,
+                   help="SDL scene (default: the packaged Cornell box)")
     p.add_argument("--steps", type=int, default=80)
     p.add_argument("--lr", type=float, default=0.02)
     p.add_argument("--out", default="/tmp/fit_camera")

@@ -28,25 +28,10 @@ This module provides the smooth-estimator counterpart used when
   central finite differences validate the autodiff gradient
   (tests/test_boundary.py).
 
-Everything here is plain XLA (jnp + lax.scan tile sweeps): gradients flow
-through the whole sweep, not a custom VJP — this is the *fit* path; the
-Pallas hard sweeps remain the production render path.
-
-**Scaling (round 3):** the dense sweeps are O(N·T). For scenes past
-``SOFT_ACCEL_MIN_TRIS`` the sweeps reuse the sparse hierarchy's cluster
-machinery (kernels/sparse_pallas: morton-ordered clusters, interval slab
-candidate lists) in pure XLA: per ray block, gather the triangles of the
-candidate clusters (AABBs inflated by the coverage band, so any triangle
-with margin > -band is provably inside a candidate) and run the same
-margin math on O(N·K·c_tri) pairs. Cluster *selection* is detached —
-it's a conservative superset, constant under infinitesimal vertex
-motion — while the gathered vertices stay differentiable, so gradients
-are identical to the dense sweep's wherever both are defined. Candidate
-overflow falls back to the dense sweep under ``lax.cond`` (never drops
-a triangle). The one knowing approximation: triangles outside every
-candidate cluster have margin < -BAND_SIGMAS·beta, so each truncated
-shadow-coverage term is < sigmoid(-6) ≈ 2.5e-3 (the silhouette records
-are exact — a true or banded hit is always inside a candidate).
+Everything here is plain XLA (jnp + lax.scan tile sweeps over the whole
+triangle buffer, O(N·T)): gradients flow through the whole sweep, not a
+custom VJP — this is the *fit* path; the hard sweeps remain the
+production render path.
 """
 
 from __future__ import annotations
@@ -69,13 +54,13 @@ IMAX = 2**31 - 1
 # relative t-margin to become the blended front record F. Without it,
 # COPLANAR CONTACT geometry (e.g. a box standing on the floor: its
 # bottom face lies exactly in the floor plane) makes F a coin flip
-# between the true hit and the coplanar near-miss at ulp-identical t —
-# measured on the v5e (BENCHLOG_r3 r3_soft_coplanar): the whole
-# band-width ring around the contact flipped between floor-white and
-# cube-red across eager-vs-jit fusion and CPU-vs-TPU transcendentals,
-# which made pose fits platform-dependent. With the bias, coplanar
-# competitors stably lose (their blend contribution was unphysical —
-# a face buried in another surface is not a silhouette), while genuine
+# between the true hit and the coplanar near-miss at ulp-identical t: the
+# whole band-width ring around the contact could flip between
+# floor-white and cube-red across eager-vs-jit fusion and between
+# platforms' transcendentals, which made pose fits platform-dependent.
+# With the bias, coplanar competitors stably lose (their blend
+# contribution was unphysical — a face buried in another surface is not
+# a silhouette), while genuine
 # front silhouettes lead by far more than eps and are unaffected.
 F_TIE_EPS = 1e-4
 
@@ -143,227 +128,13 @@ def _sweep(n_tris, tile, body, init):
     starts = jnp.arange((n_tris + tile - 1) // tile, dtype=jnp.int32) * tile
     # checkpoint: the scan's backward otherwise stacks every tile's
     # [n_rays, tile(, 3)] plane-solve intermediates — at 128^2/5k tris
-    # that is tens of GB (HBM OOM) even when this dense sweep is only the
-    # never-taken overflow branch of the sparse path's lax.cond (both
-    # branches allocate); rematerializing bounds residuals to one tile
+    # that is tens of GB; rematerializing bounds residuals to one tile
     return lax.scan(
         jax.checkpoint(lambda c, s: (body(c, s), None)), init, starts
     )[0]
 
 
-# --- cluster-accelerated soft sweeps (see module docstring, round 3) ---
-
-SOFT_ACCEL_MIN_TRIS = 4096  # below this the dense O(N·T) sweep is cheap
-SOFT_C_TRI = 32             # cluster granularity for the soft gathers
-SOFT_KMAX = 192             # candidate clusters per ray block
-SOFT_R_BLK = 256            # rays per block (soft fits are XLA-side)
-
-
-def _pad_cols(x, mult, value):
-    n = x.shape[-1]
-    pad = (-n) % mult
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
-    return jnp.pad(x, widths, constant_values=value)
-
-
-def _soft_block_candidates(o3p, d3p, tmax_rb, scene, band, c_tri, kmax):
-    """Per-ray-block candidate clusters for the soft sweeps (detached).
-
-    Cluster AABBs are inflated by ``band`` so every triangle whose
-    coverage could be nonzero (margin > -band at the plane hit) belongs
-    to some candidate. Returns (ids i32[nrb, k], valid bool[nrb, k],
-    overflow bool) — ids sorted front-to-back by conservative entry.
-    """
-    from pathtracerpython_tpu.kernels.sparse_pallas import (
-        _candidate_enter_hit,
-        _pack_for_sparse,
-        cluster_aabbs,
-    )
-
-    sg = lax.stop_gradient
-    tps = sg(_pack_for_sparse(scene, c_tri))
-    aabb8 = cluster_aabbs(tps, c_tri)
-    grow = jnp.asarray(
-        [-band, -band, -band, band, band, band, 0.0, 0.0], aabb8.dtype
-    )
-    # empty (inverted) boxes must stay inverted — only grow real ones
-    nonempty = (aabb8[:, 0] <= aabb8[:, 3])[:, None]
-    aabb8 = jnp.where(nonempty, aabb8 + grow[None, :], aabb8)
-    r_blk = o3p.shape[1] // tmax_rb.shape[0]
-    enter, hit = _candidate_enter_hit(
-        aabb8, sg(o3p), sg(d3p), sg(tmax_rb), r_blk
-    )
-    c = aabb8.shape[0]
-    k = min(kmax, c)
-    key = jnp.where(hit, jnp.maximum(enter, 0.0), BIG)
-    vals, ids = lax.top_k(-key, k)
-    valid = vals > -BIG
-    ncand = jnp.sum(hit, axis=1)
-    return ids.astype(jnp.int32), valid, jnp.any(ncand > k)
-
-
-def _gather_soft_tris(scene, cids, cvalid, c_tri):
-    """Differentiable gather of the candidate clusters' triangles.
-
-    Returns (v0, v1, v2 [M, 3], occluder bool[M], tri_ok bool[M],
-    gidx i32[M]) with M = k·c_tri; invalid slots are masked via tri_ok.
-    """
-    tidx = (cids[:, None] * c_tri
-            + jnp.arange(c_tri, dtype=jnp.int32)[None, :]).reshape(-1)
-    in_range = tidx < scene.tri_v0.shape[0]
-    safe = jnp.where(in_range, tidx, 0)
-    v0 = jnp.take(scene.tri_v0, safe, axis=0)
-    v1 = jnp.take(scene.tri_v1, safe, axis=0)
-    v2 = jnp.take(scene.tri_v2, safe, axis=0)
-    slot_ok = jnp.repeat(cvalid, c_tri, total_repeat_length=tidx.shape[0])
-    tri_ok = (
-        slot_ok & in_range & jnp.take(scene.tri_valid, safe)
-    )
-    occl = jnp.take(scene.tri_occluder, safe) & tri_ok
-    return v0, v1, v2, occl, tri_ok, safe
-
-
-def soft_hits_sweep_sparse(
-    origin, direction, scene: SceneArrays, beta: float,
-    c_tri: int = SOFT_C_TRI, kmax: int = SOFT_KMAX, r_blk: int = SOFT_R_BLK,
-) -> SoftHits:
-    """Cluster-accelerated ``soft_hits_sweep``: the F / hit1 / hit2
-    records from the gathered candidate triangles only. Exact — a true
-    or banded hit always lies inside a band-inflated candidate cluster;
-    ties resolve by the same lexicographic (t, global index) rule as the
-    dense sweep. Candidate overflow falls back to the dense sweep."""
-    n = origin.shape[0]
-    d_unit = safe_normalize(direction)
-    o3p = _pad_cols(origin.T, r_blk, 1e6)
-    d3p = _pad_cols(d_unit.T, r_blk, 1.0)
-    nrb = o3p.shape[1] // r_blk
-    band = BAND_SIGMAS * float(beta)
-    tmax_rb = jnp.full((nrb,), BIG, origin.dtype)
-    cids, cvalid, overflow = _soft_block_candidates(
-        o3p, d3p, tmax_rb, scene, band, c_tri, kmax
-    )
-
-    def per_block(args):
-        o_b, d_b, ids_b, val_b = args
-        v0, v1, v2, _, tri_ok, gidx = _gather_soft_tris(
-            scene, ids_b, val_b, c_tri
-        )
-        o = o_b.T[:, None, :]
-        d = d_b.T[:, None, :]
-        ok, t, margin = plane_hit_and_margin(
-            o, d, v0[None], v1[None], v2[None]
-        )
-        base = ok & tri_ok[None, :] & (t > T_MIN)
-        gidx_b = jnp.broadcast_to(gidx[None, :], t.shape)
-
-        def lex_min(accept, biased=False):
-            """(t, idx, margin) of the lexicographic (key, global index)
-            minimum over accepted entries; ``biased`` orders by the
-            coplanar-tie key (_f_key) while still reporting the true t."""
-            kv = _f_key(t, margin) if biased else t
-            key = jnp.where(accept, kv, BIG)
-            k = jnp.min(key, axis=1)
-            idx = jnp.min(
-                jnp.where((key == k[:, None]) & accept, gidx_b, IMAX),
-                axis=1,
-            )
-            sel = (key == k[:, None]) & (gidx_b == idx[:, None]) & accept
-            m = jnp.max(jnp.where(sel, margin, -BIG), axis=1)
-            tt = jnp.max(jnp.where(sel, t, -BIG), axis=1)
-            tt = jnp.where(idx != IMAX, tt, BIG)
-            return tt, idx, m
-
-        true_hit = base & (margin >= 0.0)
-        h1t, h1i, _ = lex_min(true_hit)
-        second = true_hit & ~(
-            (jnp.where(true_hit, t, BIG) == h1t[:, None])
-            & (gidx_b == h1i[:, None])
-        )
-        h2t, h2i, _ = lex_min(second)
-        ext = base & (margin > -band)
-        ft, fi, fm = lex_min(ext, biased=True)
-        fm = jnp.where(fi != IMAX, fm, 0.0)
-        return ft, fi, fm, h1t, h1i, h2t, h2i
-
-    def sparse_fn(_):
-        o_s = jnp.moveaxis(o3p.reshape(3, nrb, r_blk), 1, 0)
-        d_s = jnp.moveaxis(d3p.reshape(3, nrb, r_blk), 1, 0)
-        # checkpoint: without it the map's backward stacks every block's
-        # [r_blk, k*c_tri, 3] plane-solve intermediates (43x lane-padded
-        # — measured 40 GiB at 128^2/5k tris, an HBM OOM); rematerializing
-        # per block bounds residuals to one block's worth
-        outs = lax.map(jax.checkpoint(per_block), (o_s, d_s, cids, cvalid))
-        return SoftHits(*(x.reshape(-1)[:n] for x in outs))
-
-    def dense_fn(_):
-        return soft_hits_sweep_dense(origin, direction, scene, beta)
-
-    return lax.cond(overflow, dense_fn, sparse_fn, None)
-
-
-def soft_visibility_sparse(
-    origin, direction, max_dist, scene: SceneArrays, beta: float,
-    c_tri: int = SOFT_C_TRI, kmax: int = SOFT_KMAX, r_blk: int = SOFT_R_BLK,
-) -> jax.Array:
-    """Cluster-accelerated ``soft_visibility`` — O(N·K·c_tri) pairs."""
-    n = origin.shape[0]
-    d_unit = safe_normalize(direction)
-    o3p = _pad_cols(origin.T, r_blk, 1e6)
-    d3p = _pad_cols(d_unit.T, r_blk, 1.0)
-    mdp = _pad_cols(max_dist[None, :], r_blk, 0.0)[0]
-    nrb = o3p.shape[1] // r_blk
-    band = BAND_SIGMAS * float(beta)
-    tmax_rb = jnp.max(mdp.reshape(nrb, r_blk), axis=1)
-    cids, cvalid, overflow = _soft_block_candidates(
-        o3p, d3p, tmax_rb, scene, band, c_tri, kmax
-    )
-
-    def per_block(args):
-        o_b, d_b, md_b, ids_b, val_b = args
-        v0, v1, v2, occl, _, _ = _gather_soft_tris(
-            scene, ids_b, val_b, c_tri
-        )
-        o = o_b.T[:, None, :]
-        d = d_b.T[:, None, :]
-        ok, t, margin = plane_hit_and_margin(
-            o, d, v0[None], v1[None], v2[None]
-        )
-        window = ok & occl[None, :] & (t > T_MIN) & (
-            t < md_b[:, None] - T_MIN
-        )
-        cov = jnp.where(window, jax.nn.sigmoid(margin / beta), 0.0)
-        return jnp.sum(cov, axis=1)
-
-    def sparse_fn(_):
-        o_s = jnp.moveaxis(o3p.reshape(3, nrb, r_blk), 1, 0)
-        d_s = jnp.moveaxis(d3p.reshape(3, nrb, r_blk), 1, 0)
-        md_s = mdp.reshape(nrb, r_blk)
-        # checkpoint: same 43x lane-padded residual-stacking OOM as
-        # soft_hits_sweep_sparse (see comment there)
-        cov = lax.map(jax.checkpoint(per_block), (o_s, d_s, md_s, cids,
-                                                  cvalid))
-        return cov.reshape(-1)[:n]
-
-    def dense_fn(_):
-        return _soft_visibility_cov(origin, direction, max_dist, scene, beta)
-
-    cov = lax.cond(overflow, dense_fn, sparse_fn, None)
-    return 1.0 - jnp.minimum(cov, 1.0)
-
-
 def soft_hits_sweep(
-    origin, direction, scene: SceneArrays, beta: float, tile: int = 128,
-) -> SoftHits:
-    """F / hit1 / hit2 records; large scenes route through the
-    cluster-accelerated sweep (module docstring)."""
-    if scene.tri_v0.shape[0] >= SOFT_ACCEL_MIN_TRIS:
-        return soft_hits_sweep_sparse(origin, direction, scene, beta)
-    return soft_hits_sweep_dense(origin, direction, scene, beta, tile)
-
-
-def soft_hits_sweep_dense(
     origin, direction, scene: SceneArrays, beta: float, tile: int = 128,
 ) -> SoftHits:
     """One pass over the triangle buffer collecting F / hit1 / hit2.
@@ -455,11 +226,16 @@ def soft_hits_sweep_dense(
     return SoftHits(ft, fidx, fm, h1t, h1idx, h2t, h2idx)
 
 
-def _soft_visibility_cov(
+def soft_visibility(
     origin, direction, max_dist, scene: SceneArrays, beta: float,
     tile: int = 128,
 ) -> jax.Array:
-    """Dense O(N·T) shadow-coverage sum (pre-clamp)."""
+    """Smooth shadow visibility in [0, 1]: ``1 - min(1, Σ coverage)``
+    over occluder triangles strictly inside the shadow window.
+
+    Replaces the binary ``any_hit_within`` for the soft estimator; fully
+    differentiable w.r.t. occluder vertices through the edge margins.
+    """
     n = origin.shape[0]
     T = scene.tri_v0.shape[0]
     tile = min(tile, T)
@@ -480,26 +256,5 @@ def _soft_visibility_cov(
         cov = jnp.where(window, jax.nn.sigmoid(margin / beta), 0.0)
         return cov_sum + jnp.sum(cov, axis=1)
 
-    return _sweep(T, tile, body, jnp.zeros((n,), origin.dtype))
-
-
-def soft_visibility(
-    origin, direction, max_dist, scene: SceneArrays, beta: float,
-    tile: int = 128,
-) -> jax.Array:
-    """Smooth shadow visibility in [0, 1]: ``1 - min(1, Σ coverage)``
-    over occluder triangles strictly inside the shadow window.
-
-    Replaces the binary ``any_hit_within`` for the soft estimator; fully
-    differentiable w.r.t. occluder vertices through the edge margins.
-    Large scenes route through the cluster-accelerated sweep (module
-    docstring).
-    """
-    if scene.tri_v0.shape[0] >= SOFT_ACCEL_MIN_TRIS:
-        return soft_visibility_sparse(
-            origin, direction, max_dist, scene, beta
-        )
-    cov = _soft_visibility_cov(
-        origin, direction, max_dist, scene, beta, tile
-    )
+    cov = _sweep(T, tile, body, jnp.zeros((n,), origin.dtype))
     return 1.0 - jnp.minimum(cov, 1.0)

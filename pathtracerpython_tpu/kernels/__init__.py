@@ -1,15 +1,7 @@
-"""Pallas TPU megakernels for the hot intersection sweeps.
+"""Hand-written GPU kernels for the hot intersection sweeps.
 
-The reference's two hot loops — the O(rays × triangles) nearest-hit scan
-(``main.py:94-109`` → ``utils.py:98-147``) and the shadow-occlusion scan
-(``main.py:42-53``) — become tiled Pallas kernels that keep ray and
-triangle blocks in VMEM and accumulate the running best hit across
-triangle tiles without ever materializing an [N, T] buffer in HBM.
+``intersect_triton`` holds the culled nearest-hit and any-hit sweeps
+(Pallas on the Triton route). ``ops.geometry`` runs them for fast-mode
+sweeps on CUDA devices and keeps its XLA sweeps as the reference
+everywhere else.
 """
-
-from pathtracerpython_tpu.kernels.intersect_pallas import (
-    any_hit_pallas,
-    nearest_hit_pallas,
-)
-
-__all__ = ["any_hit_pallas", "nearest_hit_pallas"]

@@ -1,20 +1,19 @@
-"""TPU-friendly row lookup.
+"""Row lookup as a gather or as a one-hot matrix product.
 
-XLA gathers of [N] rows cost ~1.3 ms per call at N=262k on a v5e — they
-dominate the integrator once intersection is fast. For small tables the
-one-hot/matmul formulation runs on the MXU at ~5x the speed, and its
-transpose (scatter-add of gradients into the table) is again a matmul. The
-integrator funnels every per-ray table lookup (materials, triangle
-attributes, light vertices) through ``take_rows`` so the whole hot path is
-gather-free for typical scenes; big tables fall back to a real gather.
+``take_rows`` and friends look up per-ray table rows (materials, triangle
+attributes, light vertices) either with a plain gather or, for small
+tables, as a one-hot ``[N, R] @ [R, C]`` product whose transpose (the
+scatter-add of gradients into the table) is again a product. The plain
+gather is the default; the packed one-hot path is the correctness
+mechanism for shard-local attribute resolution (ring mode) and a knob for
+gather-bound scenes.
 
-Every one-hot matmul here runs at ``Precision.HIGHEST``: TPU f32 matmuls
-default to bf16 passes, which would silently round the gathered VALUES
-(a 0/1 matmul is only a gather if the data operand stays exact). This was
-a real bug: the Cornell light's y=3.836 rounded to bf16 3.84375 — above
-the ceiling at 3.8416 — so on the TPU XLA path every NEE shadow ray was
-self-occluded and direct lighting vanished. CPU tests never see it (CPU
-matmuls are exact); only on-chip runs do.
+Every one-hot product here runs at ``Precision.HIGHEST``: a 0/1 product
+is only a gather if the data operand stays exact, and a default-precision
+f32 product may run in a reduced format (TF32 on the GPU). Rounding the
+gathered values is a real bug, not noise: the Cornell light's y=3.836
+rounded to 3.84375 lies above the ceiling at 3.8416, which self-occludes
+every NEE shadow ray. CPU products are exact, so only device runs see it.
 """
 
 from __future__ import annotations
@@ -24,20 +23,15 @@ import jax.numpy as jnp
 
 # Max table rows for the one-hot path. Memory for the one-hot operand is
 # N x rows x 4B (e.g. 262k rays x 128 rows = 134 MB, transient).
-#
-# Default 0 = always use real gathers. Measured end-to-end on a v5e chip
-# (Cornell 512^2, 4 spp, 4 bounces): isolated gathers bench 5x slower than
-# one-hot matmuls, but inside the fused render XLA overlaps gather latency
-# with the Pallas sweeps and the one-hot variant was ~20% SLOWER overall
-# (44.9 -> 35.7 Mrays/s). The packed-lookup API stays: it is the
-# correctness mechanism for shard-local attribute resolution (ring mode)
-# and a tuning knob for gather-bound scenes.
+# Default 0 = always use real gathers, which XLA fuses into their
+# consumers.
 ONEHOT_ROWS = 0
 
 
 def take_rows(table: jax.Array, idx: jax.Array,
               onehot_rows: int | None = None) -> jax.Array:
-    """``table[idx]`` with an MXU-friendly lowering for small tables.
+    """``table[idx]``, as a one-hot product for tables of at most
+    ``onehot_rows`` rows.
 
     table: [R, ...c] float array; idx: integer array of any shape.
     Returns [*idx.shape, ...c]. Differentiable w.r.t. ``table`` (the
@@ -63,11 +57,10 @@ def cm_take(table_cm: jax.Array, idx: jax.Array,
     """Component-major lookup: table_cm [C, R] indexed by ``idx`` of any
     shape → [C, *idx.shape], minor-dim DENSE.
 
-    The row-major gather ``table.T[:, idx]`` materializes a [K, C] result
-    with C (=3) padded to 128 lanes — profiling showed those intermediates
-    dominating the render. For small R this is instead a [C, R] @ [R, K]
-    one-hot matmul whose output is born in the dense layout; large R falls
-    back to the gather (big-scene path, already kernel-dominated).
+    For small R this is a [C, R] @ [R, K] one-hot product whose output is
+    born component-major (a row-major gather would build a [K, C] result
+    and transpose it); large R falls back to the gather. Which of the two
+    is faster on the GPU has not been measured yet.
     """
     c, r = table_cm.shape
     flat = idx.reshape(-1)
@@ -89,9 +82,8 @@ def take_columns_packed(tables: list[jax.Array], idx: jax.Array,
     matmul: concatenates columns, takes rows, splits back.
 
     In gather mode (table too big / one-hot disabled) this does SEPARATE
-    direct gathers — packing + re-slicing materializes intermediates that
-    XLA otherwise fuses straight into consumers (measured ~20% end-to-end
-    regression on the TPU render when packed)."""
+    direct gathers — packing + re-slicing would materialize intermediates
+    that XLA otherwise fuses straight into consumers."""
     if onehot_rows is None:
         onehot_rows = ONEHOT_ROWS
     if tables[0].shape[0] > onehot_rows:

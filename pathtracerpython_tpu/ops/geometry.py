@@ -10,8 +10,8 @@ Two intersection semantics are provided:
   exceptions.
 
 - ``mode="fast"`` (default) is Möller–Trumbore with a proper ``t > eps``
-  near-clip: branch-free, differentiable, and the semantics the Pallas
-  megakernels implement.
+  near-clip: branch-free, differentiable, and the semantics the culled
+  Triton kernels (``kernels/intersect_triton.py``) implement.
 
 The nearest-hit / any-hit sweeps scan triangle *tiles* with a
 ``lax.scan`` carry of the running best hit, bounding peak memory to
@@ -155,7 +155,6 @@ def nearest_hit(
     scene: SceneArrays,
     mode: str = "fast",
     tile: int = 128,
-    backend: str = "xla",
     geom_axis: str | None = None,
     geom_axis_size: int = 0,
 ) -> NearestHit:
@@ -172,16 +171,9 @@ def nearest_hit(
         from pathtracerpython_tpu.parallel.ring import nearest_hit_ring
 
         return nearest_hit_ring(
-            origin, direction, scene, mode, tile, backend,
+            origin, direction, scene, mode, tile,
             axis_name=geom_axis, axis_size=geom_axis_size,
         )
-
-    if backend == "pallas" and mode == "fast":
-        from pathtracerpython_tpu.kernels.intersect_pallas import (
-            nearest_hit_pallas,
-        )
-
-        return nearest_hit_pallas(origin, direction, scene)
 
     n = origin.shape[0]
     T = scene.tri_v0.shape[0]
@@ -246,7 +238,6 @@ def any_hit_within(
     scene: SceneArrays,
     mode: str = "fast",
     tile: int = 128,
-    backend: str = "xla",
     geom_axis: str | None = None,
     geom_axis_size: int = 0,
 ) -> jax.Array:
@@ -266,16 +257,9 @@ def any_hit_within(
         from pathtracerpython_tpu.parallel.ring import any_hit_ring
 
         return any_hit_ring(
-            origin, direction, max_dist, scene, mode, tile, backend,
+            origin, direction, max_dist, scene, mode, tile,
             axis_name=geom_axis, axis_size=geom_axis_size,
         )
-
-    if backend == "pallas" and mode == "fast":
-        from pathtracerpython_tpu.kernels.intersect_pallas import (
-            any_hit_pallas,
-        )
-
-        return any_hit_pallas(origin, direction, max_dist, scene)
 
     T = scene.tri_v0.shape[0]
     tile = min(tile, T)
@@ -311,10 +295,8 @@ def normalize3(v3, eps: float = 1e-30):
 
 
 class NearestHitCM(NamedTuple):
-    """Component-major nearest-hit record: vectors are [3, N].
-
-    The integrator's working layout (see render/integrator.py): minor-dim-
-    dense on TPU, and the layout the Pallas kernels natively consume."""
+    """Component-major nearest-hit record: vectors are [3, N], the
+    integrator's working layout (see render/integrator.py)."""
 
     hit: jax.Array       # bool[N]
     t: jax.Array         # f[N]
@@ -325,128 +307,84 @@ class NearestHitCM(NamedTuple):
     is_light: jax.Array  # bool[N]
 
 
+def use_sweep_kernel(mode: str, geom_axis: str | None) -> bool:
+    """Whether a sweep goes through ``lax.platform_dependent`` to the
+    culled Triton kernels on CUDA devices (every other platform lowers the
+    XLA sweep of the same call): fast mode without the geometry ring. On
+    an H100 the kernels beat the dense XLA sweep on every scene measured,
+    from the 32-triangle Cornell box to the 100k-triangle box field, so
+    no scene size keeps the XLA sweep there."""
+    return mode == "fast" and geom_axis is None
+
+
+def _nearest_t_idx_kernel(o3, d3, scene, interpret: bool = False):
+    from pathtracerpython_tpu.kernels.intersect_triton import (
+        nearest_t_idx_cm,
+    )
+
+    return nearest_t_idx_cm(o3, normalize3(d3), scene, interpret=interpret)
+
+
+def _nearest_t_idx_xla(o3, d3, scene, tile):
+    hit = nearest_hit(o3.T, d3.T, scene, mode="fast", tile=tile)
+    return jnp.where(hit.hit, hit.t, 0.0), jnp.where(hit.hit, hit.tri_idx, -1)
+
+
 def nearest_hit_cm(
     o3, d3, scene: SceneArrays,
-    mode: str = "fast", tile: int = 128, backend: str = "xla",
+    mode: str = "fast", tile: int = 128,
     geom_axis: str | None = None, geom_axis_size: int = 0,
-    accel: str = "none",
 ) -> NearestHitCM:
-    """Component-major closest hit. Fast+pallas path is transpose-free;
-    other paths adapt through the row-major sweeps (correctness paths).
-    ``accel`` selects the cluster-sparse hierarchy for large scenes
-    (kernels/sparse_pallas.py) — bit-identical results either way."""
-    if backend == "pallas" and mode == "fast" and geom_axis is None:
-        from pathtracerpython_tpu.kernels.intersect_pallas import (
-            nearest_t_idx_cm,
+    """Component-major closest hit (see ``nearest_hit``)."""
+    if not use_sweep_kernel(mode, geom_axis):
+        hit = nearest_hit(
+            o3.T, d3.T, scene, mode=mode, tile=tile,
+            geom_axis=geom_axis, geom_axis_size=geom_axis_size,
         )
-        from pathtracerpython_tpu.kernels.sparse_pallas import (
-            resolve_accel,
-            sparse_nearest_t_idx_cm,
-        )
-
-        from pathtracerpython_tpu.ops.gather import cm_take
-
-        d3u = normalize3(d3)
-        resolved = resolve_accel(accel, scene.num_padded_triangles)
-        # "hybrid" splits by sweep kind: grid kernels for the NEAREST
-        # sweep, walker for the NEE any-hit — each on its chip-measured
-        # better phase (BENCHLOG_r5 r5_phase_by_accel), the nearest at
-        # its own wider hybrid-scoped block shape
-        if resolved == "hybrid":
-            from pathtracerpython_tpu.kernels import sparse_pallas as _sp
-
-            t, idx = sparse_nearest_t_idx_cm(
-                o3, d3u, scene,
-                r_blk=_sp.R_BLK_HYBRID_NEAREST,
-                w_per_rb=_sp.W_PER_RB_HYBRID_NEAREST,
-                chunk_rb=_sp.CHUNK_RB_HYBRID_NEAREST,
-            )
-        elif resolved == "sparse":
-            t, idx = sparse_nearest_t_idx_cm(o3, d3u, scene)
-        elif resolved == "walker":
-            from pathtracerpython_tpu.kernels.walker_pallas import (
-                walker_nearest_t_idx_cm,
-            )
-
-            t, idx = walker_nearest_t_idx_cm(o3, d3u, scene)
-        else:
-            t, idx = nearest_t_idx_cm(o3, d3u, scene)
-        found = idx >= 0
-        safe_idx = jnp.maximum(idx, 0)
-        point3 = o3 + d3u * t[None, :]
-        normal3 = cm_take(scene.tri_normal.T, safe_idx)
         return NearestHitCM(
-            hit=found,
-            t=t,
-            tri_idx=safe_idx,
-            point3=point3,
-            normal3=normal3,
-            material=scene.tri_material[safe_idx],
-            is_light=scene.tri_is_light[safe_idx] & found,
+            hit=hit.hit, t=hit.t, tri_idx=hit.tri_idx,
+            point3=hit.point.T, normal3=hit.normal.T,
+            material=hit.material, is_light=hit.is_light,
         )
 
-    hit = nearest_hit(
-        o3.T, d3.T, scene, mode=mode, tile=tile, backend=backend,
-        geom_axis=geom_axis, geom_axis_size=geom_axis_size,
+    # each branch normalizes the direction once, as ``nearest_hit`` does,
+    # so that off CUDA this path matches the row-major sweeps bit for bit
+    t, idx = lax.platform_dependent(
+        o3, d3, scene,
+        cuda=_nearest_t_idx_kernel,
+        default=lambda o, d, s: _nearest_t_idx_xla(o, d, s, tile),
     )
+    d3u = normalize3(d3)
+    found = idx >= 0
+    safe_idx = jnp.maximum(idx, 0)
     return NearestHitCM(
-        hit=hit.hit, t=hit.t, tri_idx=hit.tri_idx,
-        point3=hit.point.T, normal3=hit.normal.T,
-        material=hit.material, is_light=hit.is_light,
+        hit=found,
+        t=t,
+        tri_idx=safe_idx,
+        point3=o3 + d3u * t[None, :],
+        normal3=scene.tri_normal[safe_idx].T,
+        material=scene.tri_material[safe_idx],
+        is_light=scene.tri_is_light[safe_idx] & found,
     )
 
 
 def any_hit_within_cm(
     o3, d3_unit, max_dist, scene: SceneArrays,
-    mode: str = "fast", tile: int = 128, backend: str = "xla",
+    mode: str = "fast", tile: int = 128,
     geom_axis: str | None = None, geom_axis_size: int = 0,
-    accel: str = "none", w_per_rb: int | None = None,
-    chunk_rb: int | None = None,
 ) -> jax.Array:
-    """Component-major shadow occlusion; ``d3_unit`` must be normalized.
+    """Component-major shadow occlusion; ``d3_unit`` must be normalized."""
+    xla = lambda o, d, m, s: any_hit_within(
+        o.T, d.T, m, s, mode=mode, tile=tile,
+        geom_axis=geom_axis, geom_axis_size=geom_axis_size,
+    )
+    if not use_sweep_kernel(mode, geom_axis):
+        return xla(o3, d3_unit, max_dist, scene)
 
-    ``w_per_rb`` / ``chunk_rb``: optional sparse work-list budget
-    overrides (slots per ray block / blocks per launch). Callers who
-    KNOW their wavefront is coherence-sorted (shade_nee's sorted+parked
-    shadow lanes) pass a tighter, wider budget: the work-list grid is
-    statically sized by the budget — every padded inactive entry still
-    pays its decode/slab prologue — and more blocks per launch means
-    fewer launches. Chip-measured 822 → 790 ms on the 100k config at
-    (128, 256) vs the default (512, 128) (BENCHLOG_r4
-    r4_budget_resweep). The module defaults stay: unsorted wavefronts
-    carry 5-6x larger unions and overflow the tight budget into
-    whole-chunk dense fallbacks (the r3 storm pathology)."""
-    if backend == "pallas" and mode == "fast" and geom_axis is None:
-        from pathtracerpython_tpu.kernels.intersect_pallas import (
-            any_hit_pallas_cm,
-        )
-        from pathtracerpython_tpu.kernels.sparse_pallas import (
-            resolve_accel,
-            sparse_any_hit_cm,
-        )
+    from pathtracerpython_tpu.kernels.intersect_triton import any_hit_cm
 
-        resolved = resolve_accel(accel, scene.num_padded_triangles)
-        if resolved == "sparse":
-            return sparse_any_hit_cm(
-                o3, d3_unit, max_dist, scene, w_per_rb=w_per_rb,
-                chunk_rb=chunk_rb,
-            )
-        if resolved in ("walker", "hybrid"):
-            # the walker budgets its flat SMEM candidate list itself
-            # (W_PER_RB means candidate SLOTS there, not work items) —
-            # the sparse-tuned caller overrides do not transfer.
-            # "hybrid" routes the any-hit here and the nearest sweep to
-            # the grid kernels (each sweep on its measured-better
-            # hierarchy, BENCHLOG_r5 r5_phase_by_accel)
-            from pathtracerpython_tpu.kernels.walker_pallas import (
-                walker_any_hit_cm,
-            )
-
-            return walker_any_hit_cm(o3, d3_unit, max_dist, scene)
-        return any_hit_pallas_cm(o3, d3_unit, max_dist, scene)
-    return any_hit_within(
-        o3.T, d3_unit.T, max_dist, scene, mode=mode, tile=tile,
-        backend=backend, geom_axis=geom_axis, geom_axis_size=geom_axis_size,
+    return lax.platform_dependent(
+        o3, d3_unit, max_dist, scene, cuda=any_hit_cm, default=xla,
     )
 
 

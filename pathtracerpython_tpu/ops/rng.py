@@ -1,11 +1,9 @@
 """Dense counter-based RNG (Threefry-2x32) on lane-major arrays.
 
-Why not ``jax.vmap(jax.random.fold_in)`` + per-ray key arrays: a [N, 2]
-uint32 key array is laid out on TPU with the 2-wide minor dim padded to
-128 lanes — ~64x the HBM traffic of the logical data, and the profiler
-showed such padded arrays dominate the render (docs/PERFORMANCE.md). Here
-keys are scalar pairs and per-ray streams are generated by hashing dense
-[N] uint32 counter vectors, so every array touched is minor-dim-dense.
+Why not ``jax.vmap(jax.random.fold_in)`` + per-ray key arrays: keys here
+are scalar pairs and per-ray streams are generated by hashing dense [N]
+uint32 counter vectors, so no [N, 2] key array is ever built and every
+array touched is minor-dim-dense.
 
 Stream identity: ``uniforms(key, salt, counters, D)`` draws D uniforms per
 counter, where the counter is a GLOBAL id (pixel id); a sharded render

@@ -30,9 +30,8 @@ def pick_light_triangle(u: jax.Array, areas: jax.Array) -> jax.Array:
     ``u``: uniforms in [0, 1), any shape. Returns int32 indices.
 
     Small light meshes use an unrolled compare-and-count (L-1 vectorized
-    compares) — ``jnp.searchsorted`` lowers to a per-element while-loop of
-    gathers that was the single hottest op in the whole render (6 ms per
-    call at 786k lanes on a v5e, for a 2-triangle light!).
+    compares, fused into the consumer) — ``jnp.searchsorted`` lowers to a
+    per-element loop of gathers, which only pays off for large lights.
     """
     cum = jnp.cumsum(areas)
     total = cum[-1]
@@ -95,8 +94,9 @@ def rotate_frame_reference(v: jax.Array, normal: jax.Array) -> jax.Array:
     """
     angle = jnp.arccos(jnp.clip(normal[..., 1], -1.0, 1.0))
     rot = rotation_about_y(angle)
-    # HIGHEST precision: TPU matmuls default to bf16 passes, which would
-    # round the frame (parity path must be f32-exact like the reference)
+    # HIGHEST precision: a default-precision f32 product may run in a
+    # reduced format (TF32 on the GPU), which would round the frame (the
+    # parity path must be f32-exact like the reference)
     return jnp.einsum("...ij,...j->...i", rot, v,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -156,7 +156,7 @@ def reflect(direction: jax.Array, normal: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 # Component-major (axis-0 xyz) variants — the integrator's working layout.
 # Same math as the row-major functions above; [3, ...] instead of [..., 3]
-# keeps the minor dim dense on TPU (see docs/PERFORMANCE.md).
+# keeps each component a dense row.
 # ---------------------------------------------------------------------------
 
 

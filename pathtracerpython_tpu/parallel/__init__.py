@@ -2,11 +2,11 @@
 
 The reference's only parallelism is a per-host ``multiprocessing.Pool`` with
 one ``apply_async`` per ray (``main.py:197-204, 208-228``). Here parallelism
-is expressed the TPU way: a ``jax.sharding.Mesh`` over chips, rays/pixels
-sharded along data-parallel axes with ``shard_map``, scene geometry either
-replicated (small scenes) or sharded along a geometry axis and streamed
-around an ICI ring with ``lax.ppermute`` (large scenes) — the structural
-analogue of ring attention, with triangles playing the role of KV context.
+is a ``jax.sharding.Mesh`` over devices, rays/pixels sharded along
+data-parallel axes with ``shard_map``, scene geometry either replicated
+(small scenes) or sharded along a geometry axis and streamed around a ring
+with ``lax.ppermute`` (large scenes) — the structural analogue of ring
+attention, with triangles playing the role of KV context.
 """
 
 from pathtracerpython_tpu.parallel.mesh import make_mesh

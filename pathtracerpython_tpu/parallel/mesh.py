@@ -4,8 +4,11 @@ One place decides how physical devices become logical mesh axes:
 
 - ``dp``   — data parallel over rays/pixels/samples (the primary axis; the
   reference's per-ray pool fan-out, ``main.py:197-204``, maps here),
-- ``geom`` — optional geometry axis for triangle/BVH buffers that exceed one
-  chip's HBM, consumed by the ppermute ring in ``parallel.ring``.
+- ``geom`` — optional geometry axis for triangle buffers that exceed one
+  device's memory, consumed by the ppermute ring in ``parallel.ring``.
+
+The cards of one host are joined all to all (NVLink), so no axis order is
+closer than another: the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -22,13 +25,9 @@ def make_mesh(
     """Build a ("dp", "geom") mesh — or ("pp", "dp", "geom") when
     ``pp > 1`` — over ``devices`` (default: all).
 
-    ``dp=None`` uses every remaining device after the geom/pp split. ICI
-    adjacency: ``jax.make_mesh`` lays axes out so the trailing (geom) axis
-    is the fastest-varying — neighbours on the geom ring are physically
-    adjacent chips, which is what the ppermute ring wants; the pp axis
-    (bounce-stage pipeline, ``parallel/pipeline.py``) is the
-    slowest-varying, so its once-per-step state hop crosses the larger
-    stride while the per-sweep geom ring stays on adjacent chips.
+    ``dp=None`` uses every remaining device after the geom/pp split. The
+    trailing (geom) axis varies fastest, the pp axis (bounce-stage
+    pipeline, ``parallel/pipeline.py``) slowest.
     """
     all_devices = devices is None
     if devices is None:
@@ -43,8 +42,6 @@ def make_mesh(
     else:
         shape, names = (dp, geom), ("dp", "geom")
     if all_devices and dp * geom * pp == n:
-        # topology-aware assignment: jax.make_mesh orders devices so ring
-        # neighbours on the trailing (geom) axis are physically adjacent
         return jax.make_mesh(shape, names)
     devs = np.asarray(devices[: dp * geom * pp]).reshape(shape)
     return Mesh(devs, axis_names=names)

@@ -1,15 +1,15 @@
 """Multi-host runtime: process-group init and host-0 result assembly.
 
 The reference's only "distributed backend" is a per-host
-``multiprocessing.Pool`` with pickled results (``main.py:197-228``). The
-TPU-native equivalent is JAX's multi-controller runtime: every host runs
-this same program, ``jax.distributed.initialize`` wires the processes into
-one system, and data movement is XLA collectives over ICI/DCN — no custom
-transport. On a pod slice:
+``multiprocessing.Pool`` with pickled results (``main.py:197-228``). Here
+it is JAX's multi-controller runtime: every process runs this same
+program, ``jax.distributed.initialize`` wires the processes into one
+system, and data movement is XLA collectives (NCCL on GPUs) — no custom
+transport. With an explicit coordinator:
 
-    # on every host (same binary, same flags):
+    # in every process (same binary, same flags):
     from pathtracerpython_tpu.parallel import multihost
-    multihost.initialize()                 # no-op on single-process runs
+    multihost.initialize("localhost:12345", num_processes=2, process_id=i)
     mesh = make_mesh(dp=..., geom=...)     # global devices
     radiance = render_sharded(scene, cfg, mesh, ...)
     image = multihost.fetch_to_host(radiance)   # addressable everywhere
@@ -31,16 +31,15 @@ def initialize(
     """Initialize the multi-host runtime. Returns True if distributed mode
     is active.
 
-    With no arguments, reads the standard env (JAX_COORDINATOR_ADDRESS /
-    cloud TPU metadata); on a single-process run it's a no-op, so the same
-    entry point works from a laptop to a pod slice.
+    The coordinator comes from the argument or ``JAX_COORDINATOR_ADDRESS``;
+    with neither it's a no-op, so the same entry point serves
+    single-process runs. Nothing is auto-detected: multi-process runs pass
+    ``num_processes`` and ``process_id`` too.
     """
     explicit = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
     )
-    auto_tpu = os.environ.get("TPU_WORKER_HOSTNAMES") not in (None, "",
-                                                              "localhost")
-    if not explicit and not auto_tpu:
+    if not explicit:
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -58,7 +57,7 @@ def fetch_to_host(array: jax.Array) -> np.ndarray:
     """Assemble a (possibly cross-host sharded) array on every host.
 
     Uses ``jax.experimental.multihost_utils`` when shards span processes
-    (an XLA all-gather over DCN/ICI), plain device-get otherwise.
+    (an XLA all-gather), plain device-get otherwise.
     """
     if jax.process_count() == 1 or array.is_fully_addressable:
         return np.asarray(array)

@@ -70,16 +70,6 @@ def render_pipelined(
     """
     from pathtracerpython_tpu.ops import rng
 
-    # The soft estimator's bounce body MISCOMPILES under nested outer
-    # scans on XLA:TPU (the sample/step/bounce scan stack here is
-    # exactly the wrapping render_rays Python-unrolls to avoid —
-    # scripts/repro_soft_scan.py, tests/test_soft_scan_toolchain.py).
-    # Refuse rather than silently return wrong radiance.
-    assert cfg.soft_vis_beta == 0.0, (
-        "render_pipelined does not support the soft estimator: the "
-        "scan-wrapped soft bounce body miscompiles on XLA:TPU (see "
-        "tests/test_soft_scan_toolchain.py); use render/render_sharded"
-    )
     p_size = mesh.shape[pp_axis]
     n_b = cfg.n_bounces
     assert n_b % p_size == 0, (
@@ -128,9 +118,7 @@ def render_pipelined(
                 start = (s.astype(jnp.uint32)) * jnp.uint32(bpp)
 
                 def body(st, i):
-                    return bounce_step(
-                        st, start + i, sc, cfg, k0, k1, None
-                    ), None
+                    return bounce_step(st, start + i, sc, cfg, k0, k1), None
 
                 state = lax.scan(
                     body, state, jnp.arange(bpp, dtype=jnp.uint32)

@@ -1,9 +1,9 @@
 """Geometry-ring intersection: triangles sharded over a mesh axis, streamed
-around the ICI ring with ``lax.ppermute``.
+around a ring with ``lax.ppermute``.
 
-For scenes whose triangle/BVH buffers exceed one chip's HBM (the 100k-tri
-multi-host config in BASELINE.json), replicating geometry is impossible. The
-TPU-native answer is the ring-attention pattern with triangles as the
+For scenes whose triangle buffers exceed one device's memory, replicating
+geometry is impossible. The answer here is the ring-attention pattern with
+triangles as the
 streamed context: every device keeps its rays and running best-hit state
 resident, intersects them against the triangle shard it currently holds,
 then rotates the shard to its ring neighbour. ``axis_size - 1`` rotations
@@ -51,7 +51,6 @@ def nearest_hit_ring(
     scene: SceneArrays,
     mode: str,
     tile: int,
-    backend: str,
     axis_name: str,
     axis_size: int,
 ):
@@ -82,9 +81,7 @@ def nearest_hit_ring(
     best_key = jnp.full((nrays,), big, origin.dtype)
 
     for step in range(n):
-        local = nearest_hit(
-            origin, direction, scene, mode=mode, tile=tile, backend=backend
-        )
+        local = nearest_hit(origin, direction, scene, mode=mode, tile=tile)
         # device `me` holds, at this step, the shard born on device me-step
         owner = jnp.mod(me - step, n)
         global_idx = local.tri_idx + owner.astype(jnp.int32) * shard_t
@@ -122,7 +119,6 @@ def any_hit_ring(
     scene: SceneArrays,
     mode: str,
     tile: int,
-    backend: str,
     axis_name: str,
     axis_size: int,
 ) -> jax.Array:
@@ -138,7 +134,7 @@ def any_hit_ring(
     for step in range(axis_size):
         occluded = occluded | any_hit_within(
             origin, direction, max_dist, scene,
-            mode=mode, tile=tile, backend=backend,
+            mode=mode, tile=tile,
         )
         if step + 1 < axis_size:
             scene = _rotate_tri_shard(scene, axis_name, axis_size)

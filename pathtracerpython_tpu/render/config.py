@@ -21,72 +21,6 @@ class RenderConfig:
     """
 
     mode: str = "fast"
-    # Acceleration hierarchy: "auto" engages the cluster-sparse sweeps
-    # (kernels/sparse_pallas.py) for large scenes (>= SPARSE_MIN_TRIS
-    # padded triangles) on the fast+pallas path; "sparse" forces them;
-    # "none" keeps the dense megakernels. Results are bit-identical
-    # across all of them. (The round-2 "ranked"/"ranked-nee" per-ray
-    # traversals were excised in round 3 — measured 0.92M vs 5.67M
-    # rays/s on the 100k config, docs/PERFORMANCE.md; git history
-    # preserves them.)
-    # "auto" resolves to the HYBRID for large scenes since round 5:
-    # grid-kernel NEAREST sweep + in-kernel-walker NEE any-hit
-    # (kernels/walker_pallas.py) — each sweep on its chip-measured
-    # better hierarchy. Phase split (BENCHLOG_r5 r5_phase_by_accel):
-    # the walker wins the NEE any-hit (399 vs 449 ms of the 100k
-    # render), the grid kernels win the nearest phase (377 vs 393);
-    # hybrid lands at 719.7/729.3 ms vs walker-both 744-763 and
-    # sparse-both 789-793. "sparse"/"walker" force one hierarchy for
-    # both sweeps ("sparse" is the only one with the occluder-cache /
-    # two-pass protocols — both measured-off anyway); "none" forces the
-    # dense sweeps.
-    accel: str = "auto"
-    # (The round-2 whole-bounce fused megakernel — one launch per bounce —
-    # was excised in round 3: a measured WASH at its supported shapes
-    # (BENCHLOG_r2: 666.5M vs 667.0M rays/s) and a Mosaic compile failure
-    # (vector trunci i8->i1) at the small wavefronts where launch glue
-    # could have mattered. Git history @ a85edb8 preserves it.)
-    # Per-bounce wavefront re-sorting by (direction octant, origin morton)
-    # so sparse-sweep ray blocks stay coherent after scattering
-    # (ops/sort.py). "auto" follows the accel decision; bit-identical
-    # output either way (pure lane permutation).
-    sort_rays: str = "auto"
-    # Shadow-ray-specific ordering (VERDICT r3 task 4): re-sort the
-    # flattened S*N NEE lanes by their OWN (direction octant, origin
-    # morton) key before the sparse any-hit, instead of inheriting the
-    # shading wavefront's path-ray order. Pure lane permutation
-    # (bit-identical radiance). "auto" = ON wherever the sparse any-hit
-    # runs: chip-measured on the 100k config it cuts per-block candidate
-    # unions 5-6x (mean 246 -> 49 clusters, scripts/cache_stats.py) and
-    # the render 1115.7 -> 822.1 ms with relevance parking
-    # (BENCHLOG_r4 r4_nee_matrix).
-    sort_nee: str = "auto"
-    # Occlusion-hint block segregation on the sorted NEE sweep: each
-    # lane carries "all my shadow samples were occluded LAST bounce";
-    # the sort places predicted-occluded lanes first (one extra key
-    # bit), aiming to unpin any-hit blocks held open by 1-2 stray
-    # unoccluded lanes (blocks only early-exit when EVERY lane is
-    # occluded). Pure ordering, bit-identical radiance
-    # (tests/test_nee_mask.py); engages only where sort_nee does.
-    # "auto" = OFF: chip-measured small NEGATIVE on the 100k config
-    # (835.2 vs 820.1 ms, BENCHLOG_r4 r4_hint_ab) — the segregation bit
-    # splits the unpredicted minority's spatial coherence (wider unions)
-    # and skipped grid steps still pay their prologue, which together
-    # outweigh the early-exit savings. Opt-in with ``on``.
-    nee_hint: str = "auto"
-    # Occluder-cluster caching on the NEE any-hit (VERDICT r3 task 1,
-    # kernels/sparse_pallas.py round-4 section): each shading lane carries
-    # the cluster that blocked its shadow rays LAST bounce; pass 1 sweeps
-    # only the block's lane-voted guesses, survivors compact into a full
-    # pass 2. Occlusion verdicts — and hence radiance — are bit-identical
-    # to the uncached sweep for any cache contents (tests/test_nee_cache).
-    # "auto" = OFF: chip-measured NEGATIVE on the 100k config — best
-    # cached point 977.7 ms vs the sorted uncached sweep's 822.1 ms,
-    # because front-to-back early termination on sorted blocks already
-    # captures the occluder coherence the cache targets, and pass 1 +
-    # compacted pass 2 re-pay launch and sweep overhead (BENCHLOG_r4
-    # r4_nee_matrix; kept as an opt-in priced alternative).
-    nee_cache: str = "auto"
     # Opt-in SDL field honoring (CLI --honor-sdl): miss lanes pay the
     # scene's parsed ``background`` color (× path throughput) instead of
     # black. The reference parses background but ignores it
@@ -102,10 +36,9 @@ class RenderConfig:
     n_samples: int = 1        # rays per pixel (the reference CLI's -r)
     n_bounces: int = 1        # bounces      (the reference CLI's -b)
     n_light_samples: int = 3  # NEE samples  (main.py:23 default arg)
-    tile: int = 128           # triangle-tile width for intersection sweeps
-    backend: str = "xla"      # "xla" | "pallas" nearest/any-hit sweeps
+    tile: int = 128           # triangle-tile width of the XLA sweeps
     remat_bounces: bool = False  # jax.checkpoint each bounce (for deep grads)
-    batch_samples: bool = False  # all spp in one wavefront (fewer kernel
+    batch_samples: bool = False  # all spp in one wavefront (fewer
     #                              launches, n_samples x the live ray state)
     # Geometry-ring sharding (parallel/ring.py): when geom_axis names a mesh
     # axis the integrator is running under (via shard_map), the per-triangle
@@ -117,17 +50,9 @@ class RenderConfig:
 
     def __post_init__(self):
         assert self.mode in ("fast", "reference"), self.mode
-        assert self.accel in (
-            "auto", "sparse", "walker", "hybrid", "none"
-        ), self.accel
-        assert self.sort_rays in ("auto", "on", "off"), self.sort_rays
-        assert self.nee_cache in ("auto", "on", "off"), self.nee_cache
-        assert self.nee_hint in ("auto", "on", "off"), self.nee_hint
-        assert self.sort_nee in ("auto", "on", "off"), self.sort_nee
         assert self.soft_vis_beta >= 0.0
         assert not (self.soft_vis_beta > 0.0 and self.mode == "reference"), (
             "soft visibility is a fast-mode (differentiable) feature"
         )
-        assert self.backend in ("xla", "pallas"), self.backend
         assert self.n_samples >= 1 and self.n_bounces >= 1
         assert (self.geom_axis is None) == (self.geom_axis_size == 0)

@@ -14,6 +14,9 @@ sane row-major mapping + selectable normalization as the default.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,7 +65,27 @@ def radiance_to_image(
     return np.asarray(canvas * 255.0).astype(np.uint8)
 
 
-def save_png(image: np.ndarray, path: str) -> None:
-    from PIL import Image
+def png_bytes(image: np.ndarray) -> bytes:
+    """Encode a uint8 [H, W, 3] image as an 8-bit RGB PNG (zlib only)."""
+    img = np.ascontiguousarray(image, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3], got {img.shape}")
+    h, w, _ = img.shape
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1
+    ).tobytes()
 
-    Image.fromarray(image).save(path)
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def save_png(image: np.ndarray, path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(png_bytes(image))

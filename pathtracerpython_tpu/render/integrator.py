@@ -7,22 +7,19 @@ scatter phase — with a single jitted program over a flat ray SoA:
     for each sample:                      (lax.scan, or extra lanes)
         state = primary rays              (ops.camera)
         for each bounce:                  (lax.scan over bounce index)
-            hit   = nearest_hit_cm        (Pallas megakernel / XLA sweep)
+            hit   = nearest_hit_cm        (XLA sweep / culled Triton kernel)
             color = shade(hit)            (ambient + NEE; light on hit)
             state = scatter(hit, state)   (diffuse/specular branch, masked)
 
-TPU-native layout decisions (profiler-driven, see docs/PERFORMANCE.md):
+Layout:
 
 - every per-ray vector is **component-major** f32[3, N] — xyz on the
-  leading axis, rays on the minor axis. A [N, 3] array tiles its 3-wide
-  minor dim to 128 lanes (~42x HBM bloat); [3, N] is dense. This is also
-  exactly the layout the Pallas intersection kernels consume, so the hot
-  path has zero transposes.
+  leading axis, rays on the minor axis, so each component is a dense row.
+  This is also the layout the Triton intersection kernels consume.
 - RNG is a dense counter-based Threefry (ops/rng.py): one scalar key pair
   per (bounce, purpose), hashed against the GLOBAL path counter
   ``pixel_id * n_samples + sample`` per lane — reproducible,
-  shard-invariant, and no [N, 2] key arrays (which would reintroduce the
-  lane-padding bloat).
+  shard-invariant, and no [N, 2] key arrays.
 
 Dead rays are masked lanes (``alive``), not ``None`` entries; the per-ray
 scalar throughput (the reference's ``accumulated_k``, ``main.py:190``) and
@@ -80,14 +77,6 @@ class RayState(NamedTuple):
     radiance3: jax.Array    # f32[3, N] accumulated pixel color
     counters: jax.Array     # u32[N] global path id = pixel_id * spp + sample
     prev_specular: jax.Array  # bool[N] (fast-mode emission rule)
-    nee_cache: jax.Array    # i32[N] occluder-cluster cache for the NEE
-    #                         any-hit (-1 = no guess); carried across
-    #                         bounces, permuted with the lane on sorts
-    nee_occ_hint: jax.Array  # bool[N] "every shadow sample of this lane
-    #                          was occluded LAST bounce" — the block-
-    #                          segregation predictor for the sorted NEE
-    #                          sweep (see shade_nee); pure ordering
-    #                          signal, never touches radiance
 
 
 class Materials(NamedTuple):
@@ -127,67 +116,11 @@ def _power_numpy_semantics(base, exponent):
     return jnp.where(base >= 0.0, mag, neg_case)
 
 
-def _nee_sort_enabled(scene: SceneArrays, cfg: RenderConfig) -> bool:
-    """Shadow-lane re-sorting runs where the sparse any-hit does; "auto"
-    is ON — the chip A/B (BENCHLOG_r4 r4_nee_matrix) measured +36% on
-    the 100k config (1115.7 -> 822.1 ms with relevance parking)."""
-    from pathtracerpython_tpu.kernels.sparse_pallas import use_sparse
-
-    if cfg.sort_nee == "off" or cfg.mode != "fast":
-        return False
-    if cfg.backend != "pallas" or cfg.geom_axis is not None:
-        return False
-    if cfg.soft_vis_beta > 0.0:
-        return False
-    return use_sparse(cfg.accel, scene.num_padded_triangles)
-
-
-def _nee_cache_enabled(scene: SceneArrays, cfg: RenderConfig) -> bool:
-    """Occluder-cluster caching on the sparse any-hit (hard shadows
-    through kernels/sparse_pallas.py): fast + pallas, no geometry ring,
-    no soft blend, accel resolved to sparse. "auto" is OFF — the chip
-    A/B measured the cache strictly dominated by the sorted uncached
-    sweep (RenderConfig.nee_cache); ``on`` opts in. Sparse-grid only —
-    the cached two-pass protocol is built on the sparse kernels, so the
-    walker hierarchy runs uncached."""
-    from pathtracerpython_tpu.kernels.sparse_pallas import resolve_accel
-
-    if cfg.nee_cache != "on" or cfg.mode != "fast":
-        return False
-    if cfg.backend != "pallas" or cfg.geom_axis is not None:
-        return False
-    if cfg.soft_vis_beta > 0.0:
-        return False
-    return resolve_accel(
-        cfg.accel, scene.num_padded_triangles) == "sparse"
-
-
 def shade_nee(
     hit: NearestHitCM, mat: Materials, u, scene: SceneArrays,
-    cfg: RenderConfig, shading_normal3=None, nee_cache=None, relevant=None,
-    occ_hint=None,
+    cfg: RenderConfig, shading_normal3=None,
 ):
-    """Direct lighting via next-event estimation; returns
-    ([3, N], updated nee_cache, updated occ_hint — the inputs unless the
-    cached sparse any-hit / the hard-shadow sweep ran, see
-    ``_nee_cache_enabled``).
-
-    ``occ_hint`` bool[N]: last bounce's all-samples-occluded bit per
-    lane; when the shadow-lane sort runs (and ``cfg.nee_hint`` allows),
-    it segregates predicted-unoccluded lanes into their own blocks so
-    occluded-pure blocks can early-exit (ops/sort.py). Refreshed from
-    this bounce's verdicts on return; ordering-only, radiance is
-    bit-identical either way.
-
-    ``relevant`` (fast mode): bool[N] lanes whose NEE result reaches the
-    radiance (alive, surface-hit, non-light). Irrelevant lanes' shadow
-    rays are PARKED (off-scene origin, zero occlusion window) before the
-    occlusion sweep — render output is bit-identical because ``shade``
-    discards their direct term (miss/light-hit lanes) or ``bounce_step``
-    masks their contribution (dead lanes), but the sweep stops paying
-    for them: measured on the 100k config, 68% of bounce-3 shadow lanes
-    are irrelevant stale-point rays that can never early-terminate
-    (unoccluded lanes scan their block's whole candidate union).
+    """Direct lighting via next-event estimation; returns [3, N].
 
     Reference contract (``main.py:23-73``): ``n_light_samples`` light
     points (triangle ∝ area, normalized-uniform barycentrics), occlusion
@@ -205,36 +138,6 @@ def shade_nee(
     # fast mode shades on the side the ray arrived from (consistent with
     # scatter); reference mode uses the raw winding normal (parity)
     normal3 = hit.normal3 if shading_normal3 is None else shading_normal3
-
-    from pathtracerpython_tpu.kernels.sparse_pallas import resolve_accel
-
-    from pathtracerpython_tpu.kernels.nee_pallas import (
-        FUSED_NEE_MAX_LIGHT_TRIS,
-    )
-
-    if (cfg.mode == "fast" and cfg.backend == "pallas"
-            and cfg.geom_axis is None
-            and scene.light_v0.shape[0] <= FUSED_NEE_MAX_LIGHT_TRIS
-            and cfg.soft_vis_beta == 0.0
-            and resolve_accel(
-                cfg.accel, scene.num_padded_triangles) == "none"):
-        # (accelerated scenes skip the fused kernel: its occlusion sweep
-        # is dense O(T) — the sparse/ranked any-hit below is the fast
-        # path there)
-        # fused megakernel: sampling + occlusion sweep + cosine mean in one
-        # launch (same uniforms, same estimator; kernels/nee_pallas.py).
-        # Gated on light-mesh size: the kernel unrolls the CDF pick and
-        # vertex select per light triangle.
-        from pathtracerpython_tpu.kernels.nee_pallas import nee_mean_cos_fused
-
-        mean_cos = nee_mean_cos_fused(
-            point3, normal3, u, scene, s
-        )[0]
-        return (
-            scene.light_color[:, None] * mat.rgb3 * mean_cos[None, :],
-            nee_cache,
-            occ_hint,
-        )
 
     u = u.reshape(s, 5, n)
     tri = sampling.pick_light_triangle(u[:, 0], scene.light_area)  # [S, N]
@@ -283,109 +186,11 @@ def shade_nee(
         ).reshape(s, n)
         mean_cos = jnp.mean(vis * cos, axis=0)  # [N]
     else:
-        rel_flat = None
-        if relevant is not None and cfg.mode == "fast":
-            rel_flat = jnp.broadcast_to(
-                relevant[None, :], (s, n)
-            ).reshape(s * n)
-        if rel_flat is not None and _nee_sort_enabled(scene, cfg):
-            # PARK irrelevant lanes — but ONLY when the shadow-lane sort
-            # below will group them into their own tail blocks. Parked
-            # origins (y=1e6) inside mixed blocks blow up the sparse
-            # builder's INTERVAL slab test (the block's origin box grows
-            # to cover the park point → every cluster becomes a
-            # candidate): measured 31 s/render vs 1.1 s on the 100k
-            # config when parking without sorting.
-            from pathtracerpython_tpu.ops.sort import PARK_DIR, PARK_ORIGIN
-
-            park_o = jnp.asarray(PARK_ORIGIN, flat_o3.dtype)[:, None]
-            park_d = jnp.asarray(PARK_DIR, flat_d3.dtype)[:, None]
-            flat_o3 = jnp.where(rel_flat[None, :], flat_o3, park_o)
-            flat_d3 = jnp.where(rel_flat[None, :], flat_d3, park_d)
-            flat_dist = jnp.where(rel_flat, flat_dist, 0.0)
-
-        # shadow-lane-specific ordering: sort the S*N flattened lanes by
-        # their OWN key rather than the inherited shading-wavefront
-        # order; a pure permutation, un-done on the results below
-        order = None
-        if _nee_sort_enabled(scene, cfg):
-            from pathtracerpython_tpu.ops.sort import (
-                scene_bounds,
-                wavefront_sort_order,
-            )
-
-            hint_flat = None
-            if occ_hint is not None and cfg.nee_hint == "on":
-                hint_flat = jnp.broadcast_to(
-                    occ_hint[None, :], (s, n)
-                ).reshape(s * n)
-            lo3, hi3 = scene_bounds(scene)
-            order = wavefront_sort_order(
-                flat_o3, flat_d3,
-                jnp.ones(s * n, dtype=bool) if rel_flat is None
-                else rel_flat,
-                lo3, hi3, occ_hint=hint_flat,
-            )
-            flat_o3 = jnp.take(flat_o3, order, axis=1)
-            flat_d3 = jnp.take(flat_d3, order, axis=1)
-            flat_dist = flat_dist[order]
-            if rel_flat is not None:
-                rel_flat = rel_flat[order]
-
-        # sorted+parked shadow lanes fit a tighter work-list budget
-        # (smaller static grid, fewer prologue-only padded entries) and
-        # more blocks per launch (ops/geometry.any_hit_within_cm).
-        # Gated on sorted AND parked (ADVICE r4): the tight budget is
-        # sized for parked wavefronts whose irrelevant lanes carry empty
-        # unions; a sorted-only sweep (shade_nee without `alive`) can
-        # overflow it into whole-chunk dense fallbacks — a perf cliff.
-        w_nee = chunk_nee = None
-        if order is not None and rel_flat is not None:
-            from pathtracerpython_tpu.kernels import sparse_pallas as _sp
-
-            w_nee = _sp.W_PER_RB_SORTED
-            chunk_nee = _sp.CHUNK_RB_SORTED
-
-        if nee_cache is not None and _nee_cache_enabled(scene, cfg):
-            from pathtracerpython_tpu.kernels.sparse_pallas import (
-                sparse_any_hit_cached_cm,
-            )
-
-            # every light sample of a shading point shares its guess
-            # (they almost always share the occluder); any sample's
-            # blocker refreshes the cache, misses keep the old guess
-            guess = jnp.broadcast_to(
-                nee_cache[None, :], (s, n)
-            ).reshape(s * n)
-            if order is not None:
-                guess = guess[order]
-            occ_flat, blocked = sparse_any_hit_cached_cm(
-                flat_o3, flat_d3, flat_dist, scene, guess,
-                relevant=rel_flat, w_per_rb=w_nee, chunk_rb=chunk_nee,
-            )
-            if order is not None:
-                occ_flat = jnp.zeros(s * n, bool).at[order].set(occ_flat)
-                blocked = jnp.full(s * n, -1, jnp.int32).at[order].set(
-                    blocked
-                )
-            occluded = occ_flat.reshape(s, n)
-            upd = jnp.max(blocked.reshape(s, n), axis=0)
-            nee_cache = jnp.where(upd >= 0, upd, nee_cache)
-        else:
-            occ_flat = any_hit_within_cm(
-                flat_o3, flat_d3, flat_dist, scene,
-                mode=cfg.mode, tile=cfg.tile, backend=cfg.backend,
-                geom_axis=cfg.geom_axis, geom_axis_size=cfg.geom_axis_size,
-                accel=cfg.accel, w_per_rb=w_nee, chunk_rb=chunk_nee,
-            )
-            if order is not None:
-                occ_flat = jnp.zeros(s * n, bool).at[order].set(occ_flat)
-            occluded = occ_flat.reshape(s, n)
-        if occ_hint is not None and cfg.mode == "fast":
-            # next bounce's segregation predictor; irrelevant lanes read
-            # False (parked lanes are never occluded) which is fine —
-            # they are parked again before the hint would matter
-            occ_hint = jnp.all(occluded, axis=0)
+        occluded = any_hit_within_cm(
+            flat_o3, flat_d3, flat_dist, scene,
+            mode=cfg.mode, tile=cfg.tile,
+            geom_axis=cfg.geom_axis, geom_axis_size=cfg.geom_axis_size,
+        ).reshape(s, n)
         mean_cos = jnp.mean(jnp.where(occluded, 0.0, cos), axis=0)  # [N]
 
     if cfg.mode == "reference":
@@ -404,35 +209,19 @@ def shade_nee(
     else:
         direct_rgb3 = mat.rgb3
 
-    return (
-        scene.light_color[:, None] * direct_rgb3 * mean_cos[None, :],
-        nee_cache,
-        occ_hint,
-    )
+    return scene.light_color[:, None] * direct_rgb3 * mean_cos[None, :]
 
 
 def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneArrays,
-          cfg: RenderConfig, prev_specular, shading_normal3=None,
-          nee_cache=None, alive=None, occ_hint=None):
-    """Per-bounce color ([3, N], updated nee_cache, updated occ_hint):
-    light hits pay the light color, surface hits pay ambient + NEE
-    (``compute_color``, ``main.py:142-145``); misses pay 0. Fast mode
-    kills the reference's emission double-count (quirk §2.4-6): a light
-    hit only pays when the path arrived from the camera or a specular
-    bounce.
-
-    ``alive`` (fast mode): when given, the NEE occlusion sweep only pays
-    for lanes whose direct term survives the masks below — see
-    ``shade_nee``'s ``relevant``. ``occ_hint``: the sorted sweep's
-    block-segregation predictor, threaded through ``shade_nee``."""
-    relevant = None
-    if alive is not None and cfg.mode == "fast":
-        relevant = alive & hit.hit & ~hit.is_light
+          cfg: RenderConfig, prev_specular, shading_normal3=None):
+    """Per-bounce color [3, N]: light hits pay the light color, surface
+    hits pay ambient + NEE (``compute_color``, ``main.py:142-145``);
+    misses pay 0. Fast mode kills the reference's emission double-count
+    (quirk §2.4-6): a light hit only pays when the path arrived from the
+    camera or a specular bounce."""
     ambient3 = mat.rgb3 * (mat.ka * scene.ambient)[None, :]
-    direct3, nee_cache, occ_hint = shade_nee(
-        hit, mat, u, scene, cfg, shading_normal3, nee_cache, relevant,
-        occ_hint,
-    )
+    with jax.named_scope("nee"):
+        direct3 = shade_nee(hit, mat, u, scene, cfg, shading_normal3)
     surface3 = ambient3 + direct3
 
     light3 = jnp.broadcast_to(scene.light_color[:, None], surface3.shape)
@@ -445,7 +234,7 @@ def shade(hit: NearestHitCM, mat: Materials, u, scene: SceneArrays,
         jnp.broadcast_to(scene.background[:, None], surface3.shape)
         if cfg.use_background else jnp.zeros_like(surface3)
     )
-    return jnp.where(hit.hit[None, :], color3, miss3), nee_cache, occ_hint
+    return jnp.where(hit.hit[None, :], color3, miss3)
 
 
 def arrival_side_normal(normal3, d_in3):
@@ -506,28 +295,6 @@ def scatter(
     return new_dir3, factor, survives, ~choose_diffuse
 
 
-def _sort_enabled(scene: SceneArrays, cfg: RenderConfig) -> bool:
-    """Per-bounce wavefront sorting: on for the sparse-accel fast path
-    (where block coherence is the performance model), off elsewhere.
-    Reference mode is never sorted — it is the parity gate."""
-    from pathtracerpython_tpu.kernels.sparse_pallas import use_sparse
-
-    if cfg.mode != "fast" or cfg.geom_axis is not None:
-        return False
-    if cfg.sort_rays == "on":
-        return True
-    return cfg.sort_rays == "auto" and (
-        cfg.backend == "pallas"
-        and use_sparse(cfg.accel, scene.num_padded_triangles)
-    )
-
-
-def _permute_state(state: RayState, order) -> RayState:
-    from pathtracerpython_tpu.ops.sort import permute_minor
-
-    return RayState(*(permute_minor(f, order) for f in state))
-
-
 def _soft_hit_and_shade(o3, d3, state, scene, cfg, u_nee):
     """Silhouette-blended hit + color for the soft estimator
     (cfg.soft_vis_beta > 0; see diff/boundary.py for the math).
@@ -576,10 +343,7 @@ def _soft_hit_and_shade(o3, d3, state, scene, cfg, u_nee):
     def shade_rec(r: NearestHitCM):
         m = resolve_materials(scene, r.material)
         n3 = arrival_side_normal(r.normal3, normalize3(d3))
-        # soft mode routes occlusion through soft_visibility — the
-        # occluder cache does not apply (cache passed as None, returned
-        # unchanged)
-        return shade(r, m, u_nee, scene, cfg, state.prev_specular, n3)[0]
+        return shade(r, m, u_nee, scene, cfg, state.prev_specular, n3)
 
     color3 = (
         cov[None, :] * shade_rec(front)
@@ -590,57 +354,30 @@ def _soft_hit_and_shade(o3, d3, state, scene, cfg, u_nee):
 
 def bounce_step(
     state: RayState, bounce_idx, scene: SceneArrays, cfg: RenderConfig,
-    k0, k1, sort_bounds=None,
+    k0, k1,
 ) -> RayState:
-    """One wavefront bounce: intersect → shade → scatter, fully masked.
-
-    ``sort_bounds``: (lo3, hi3) scene bounds when wavefront sorting is
-    enabled — the state is re-sorted by (octant, origin morton) and dead
-    lanes are parked on a no-candidate ray; a pure lane permutation, so
-    output is bit-identical to the unsorted path (counters carry the RNG).
-    """
-    if sort_bounds is not None:
-        from pathtracerpython_tpu.ops.sort import (
-            PARK_DIR,
-            PARK_ORIGIN,
-            wavefront_sort_order,
-        )
-
-        lo3, hi3 = sort_bounds
-        order = wavefront_sort_order(
-            state.origin3, state.direction3, state.alive, lo3, hi3
-        )
-        state = _permute_state(state, order)
-        park_o = jnp.asarray(PARK_ORIGIN, state.origin3.dtype)[:, None]
-        park_d = jnp.asarray(PARK_DIR, state.direction3.dtype)[:, None]
-        sweep_o3 = jnp.where(state.alive[None, :], state.origin3, park_o)
-        sweep_d3 = jnp.where(state.alive[None, :], state.direction3, park_d)
-    else:
-        sweep_o3 = state.origin3
-        sweep_d3 = state.direction3
-
+    """One wavefront bounce: intersect → shade → scatter, fully masked."""
     nk0, nk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_NEE)
     sk0, sk1 = rng.fold(k0, k1, bounce_idx * 4 + _P_SCATTER)
 
     u_nee = rng.uniforms(nk0, nk1, state.counters, cfg.n_light_samples * 5)
     u_scatter = rng.uniforms(sk0, sk1, state.counters, 3)
 
-    nee_cache = state.nee_cache
-    occ_hint = state.nee_occ_hint
     if cfg.soft_vis_beta > 0.0 and cfg.mode == "fast":
         hit, color3 = _soft_hit_and_shade(
-            sweep_o3, sweep_d3, state, scene, cfg, u_nee
+            state.origin3, state.direction3, state, scene, cfg, u_nee
         )
         mat = resolve_materials(scene, hit.material)
         shading_n3 = arrival_side_normal(
             hit.normal3, normalize3(state.direction3)
         )
     else:
-        hit = nearest_hit_cm(
-            sweep_o3, sweep_d3, scene, mode=cfg.mode,
-            tile=cfg.tile, backend=cfg.backend, geom_axis=cfg.geom_axis,
-            geom_axis_size=cfg.geom_axis_size, accel=cfg.accel,
-        )
+        with jax.named_scope("nearest_hit"):
+            hit = nearest_hit_cm(
+                state.origin3, state.direction3, scene, mode=cfg.mode,
+                tile=cfg.tile, geom_axis=cfg.geom_axis,
+                geom_axis_size=cfg.geom_axis_size,
+            )
         mat = resolve_materials(scene, hit.material)
         if cfg.mode == "fast":
             # one arrival-side normal for BOTH direct lighting and
@@ -652,18 +389,18 @@ def bounce_step(
         else:
             shading_n3 = None
 
-        color3, nee_cache, occ_hint = shade(
+        color3 = shade(
             hit, mat, u_nee, scene, cfg, state.prev_specular, shading_n3,
-            state.nee_cache, state.alive, state.nee_occ_hint,
         )
     contrib3 = jnp.where(
         state.alive[None, :], color3 * state.throughput[None, :], 0.0
     )
     radiance3 = state.radiance3 + contrib3
 
-    new_dir3, factor, survives, chose_spec = scatter(
-        state, hit, mat, u_scatter, scene, cfg, shading_n3
-    )
+    with jax.named_scope("scatter"):
+        new_dir3, factor, survives, chose_spec = scatter(
+            state, hit, mat, u_scatter, scene, cfg, shading_n3
+        )
     alive = state.alive & survives
     throughput = jnp.where(alive, state.throughput * factor, state.throughput)
     origin3 = jnp.where(alive[None, :], hit.point3, state.origin3)
@@ -677,8 +414,6 @@ def bounce_step(
         radiance3=radiance3,
         counters=state.counters,
         prev_specular=state.alive & chose_spec,
-        nee_cache=nee_cache,
-        nee_occ_hint=occ_hint,
     )
 
 
@@ -693,8 +428,6 @@ def init_rays(origins3, directions3, counters) -> RayState:
         radiance3=jnp.zeros((3, n), origins3.dtype),
         counters=counters.astype(jnp.uint32),
         prev_specular=jnp.ones(n, dtype=bool),  # camera counts as specular
-        nee_cache=jnp.full(n, -1, jnp.int32),   # cold occluder cache
-        nee_occ_hint=jnp.zeros(n, dtype=bool),  # no prediction at bounce 1
     )
 
 
@@ -712,7 +445,7 @@ def render_rays(
     Two execution plans with IDENTICAL results (the RNG stream depends
     only on (pixel, sample)): a lax.scan over samples (default, minimal
     memory) or ``cfg.batch_samples`` (all spp as extra lanes — fewer
-    kernel launches, n_samples× the live state).
+    launches, n_samples× the live state).
     """
     n = origins.shape[0]
     s_total = cfg.n_samples
@@ -723,33 +456,15 @@ def render_rays(
     pid = pixel_ids.astype(jnp.uint32)
     k0, k1 = rng.key_from_seed(base_key)
 
-    sort_bounds = None
-    if _sort_enabled(scene, cfg):
-        from pathtracerpython_tpu.ops.sort import scene_bounds
-
-        sort_bounds = scene_bounds(scene)
-
     def bounce_sweep(state):
         def body(st, b):
-            return bounce_step(st, b, scene, cfg, k0, k1, sort_bounds), None
+            return bounce_step(st, b, scene, cfg, k0, k1), None
 
         if cfg.remat_bounces:
             body = jax.checkpoint(body)
         return lax.scan(
             body, state, jnp.arange(cfg.n_bounces, dtype=jnp.uint32)
         )[0]
-
-    def unscramble(radiance3, counters, batched: bool):
-        """Sorting permutes lanes each bounce; the RNG counter uniquely
-        names each lane's accumulator slot (lane layout: pid for the
-        per-sample scan, sample*n + pid for batch_samples), so one
-        scatter restores order regardless of how many re-sorts happened."""
-        if sort_bounds is None:
-            return radiance3
-        c = counters.astype(jnp.int32)
-        pid_of = c // s_total
-        slot = (c % s_total) * n + pid_of if batched else pid_of
-        return jnp.zeros_like(radiance3).at[:, slot].set(radiance3)
 
     if cfg.batch_samples and s_total > 1:
         rep3 = lambda x: jnp.concatenate([x] * s_total, axis=1)
@@ -760,34 +475,15 @@ def render_rays(
         )
         state = init_rays(rep3(o3), rep3(d3), counters)
         state = bounce_sweep(state)
-        radiance3 = unscramble(state.radiance3, state.counters, True)
         return jnp.mean(
-            radiance3.reshape(3, s_total, n), axis=1
+            state.radiance3.reshape(3, s_total, n), axis=1
         ).T
 
     def one_sample(carry, sample_idx):
         counters = pid * s_total + sample_idx
         state = init_rays(o3, d3, counters)
         state = bounce_sweep(state)
-        return carry + unscramble(state.radiance3, state.counters, False), None
-
-    if cfg.soft_vis_beta > 0.0 and cfg.mode == "fast":
-        # Python-unrolled samples: wrapping the SOFT bounce body in the
-        # outer lax.scan miscompiles on XLA:TPU — measured on the v5e
-        # (scripts/repro_soft_scan.py; version-gated by
-        # tests/test_soft_scan_toolchain.py, which FAILS LOUDLY when a
-        # toolchain fixes it — that is the signal to delete this
-        # unroll): the scan-wrapped program's
-        # radiance diverges from the identical unwrapped program (and
-        # from CPU under either form) by up to 0.98 on 40% of Cornell
-        # pixels, which silently broke every chip-side soft pose fit
-        # (loss floor 0.027 vs the true 0.0057). Single-level scans
-        # (the bounce sweep) are unaffected; soft spp is small, so the
-        # unroll costs only program size.
-        total3 = jnp.zeros((3, n), origins.dtype)
-        for s_idx in range(s_total):
-            total3, _ = one_sample(total3, jnp.uint32(s_idx))
-        return (total3 / s_total).T
+        return carry + state.radiance3, None
 
     total3 = lax.scan(
         one_sample,

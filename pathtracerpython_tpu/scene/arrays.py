@@ -143,8 +143,9 @@ class SceneArrays:
 
 def _morton_argsort(centroids: np.ndarray) -> np.ndarray:
     """Spatial (Z-order) sort of triangle centroids — groups nearby
-    triangles into contiguous buffer blocks so the kernels' per-block AABBs
-    are tight and block-granular culling bites (kernels/intersect_pallas)."""
+    triangles into contiguous buffer tiles so the culled sweep's per-tile
+    boxes are tight and tile-granular culling bites
+    (kernels/intersect_triton.py)."""
     lo = centroids.min(axis=0)
     hi = centroids.max(axis=0)
     q = ((centroids - lo) / np.maximum(hi - lo, 1e-12) * 1023.0)
@@ -165,12 +166,10 @@ def _median_split_argsort(cent: np.ndarray, leaf: int = 128) -> np.ndarray:
     """Order triangles into median-split BVH leaves of ``leaf`` rows.
 
     Recursive widest-axis median splits, with each split point rounded to
-    a multiple of ``leaf`` so interior leaves stay exactly full — the
-    sparse kernels' fixed-size clusters (kernels/sparse_pallas.py C_TRI)
-    then coincide with real spatial partitions instead of raw morton
-    runs. Measured on the 100k box field: 17-29% fewer per-ray candidate
-    clusters on bounce/NEE wavefronts than morton order (slightly more
-    on primary nearest); see docs/PERFORMANCE.md.
+    a multiple of ``leaf`` so interior leaves stay exactly full — a
+    multiple of the culled sweep's tile (kernels/intersect_triton.py
+    T_TILE), so its tiles coincide with real spatial partitions instead
+    of raw morton runs.
     """
     out = []
     stack = [np.arange(cent.shape[0])]
@@ -199,8 +198,8 @@ def pack_scene(
     ``tri_order`` spatially sorts the triangle buffer (fast-mode only: it
     changes the reference's nearest-hit tie-break order, so leave it off
     when gating against reference-mode parity): "morton" (centroid
-    z-order) or "median" (median-split BVH leaves aligned to the sparse
-    kernels' cluster size). ``morton_order=True`` is the legacy alias for
+    z-order) or "median" (median-split BVH leaves aligned to the culled
+    sweep's tiles). ``morton_order=True`` is the legacy alias for
     tri_order="morton".
     """
     assert desc.objects, "scene has no objects"

@@ -4,10 +4,11 @@
 at C++ speed for large meshes (identical on well-formed files; strtod
 rejects a few exotic numeric forms Python ``float()`` accepts, e.g.
 digit underscores — those fall back to the Python parser's behavior only
-by erroring here). This module loads the shared
-library, building it with ``make`` on first use if the toolchain is
-available, and falls back to the pure-Python parser otherwise — callers
-never fail because the native tier is missing.
+by erroring here). This module loads the shared library from
+``native/build/`` (git-ignored), building it with ``make`` first whenever
+it is missing or older than its source, and falls back to the pure-Python
+parser when the toolchain is unavailable — callers never fail because the
+native tier is missing.
 """
 
 from __future__ import annotations
@@ -23,7 +24,17 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libptpt_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "objparse.cpp")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libptpt_native.so")
+
+
+def _stale() -> bool:
+    """The library is missing or older than its source."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    return (os.path.exists(_SRC_PATH)
+            and os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH))
+
 
 _lib = None
 _lib_tried = False
@@ -34,9 +45,7 @@ def _load_library():
     if _lib_tried:
         return _lib
     _lib_tried = True
-    if not os.path.exists(_LIB_PATH) and os.path.exists(
-        os.path.join(_NATIVE_DIR, "Makefile")
-    ):
+    if _stale() and os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
         try:
             subprocess.run(
                 ["make", "-C", _NATIVE_DIR], check=True,

@@ -79,8 +79,8 @@ def render_progressive(
     ``progress(chunk_done, n_chunks, samples_done, chunk_seconds)``
     invoked after each chunk completes (device-synced timing) — the
     CLI's per-chunk status line (the reference streams tqdm bars per
-    phase, ``/root/reference/main.py:199-224``; at TPU batch sizes the
-    natural progress granularity is the sample chunk).
+    phase, ``main.py:199-224``; at accelerator batch sizes the natural
+    progress granularity is the sample chunk).
     """
     import dataclasses
     import time

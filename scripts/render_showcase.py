@@ -29,15 +29,13 @@ def main():
     from pathtracerpython_tpu.render.config import RenderConfig
     from pathtracerpython_tpu.render.image import radiance_to_image, save_png
     from pathtracerpython_tpu.render.integrator import render_rays
-    from pathtracerpython_tpu.scene import load_scene
+    from pathtracerpython_tpu.scene import cornell_sdl, load_scene
     import jax.numpy as jnp
 
-    on_tpu = jax.default_backend() == "tpu"
     w = h = 512
-    scene = load_scene("/root/reference/objs/cornellroom.sdl", pad_to=32)
+    scene = load_scene(cornell_sdl(), pad_to=32)
     cfg = RenderConfig(
         mode="fast", n_samples=spp, n_bounces=4, n_light_samples=3,
-        backend="pallas" if on_tpu else "xla",
     )
     origins, dirs = make_primary_rays(scene.eye, scene.ortho, w, h)
     pids = jnp.arange(w * h, dtype=jnp.int32)

@@ -5,6 +5,8 @@ import os
 
 import pytest
 
+from pathtracerpython_tpu.scene import cornell_sdl
+
 pytestmark = pytest.mark.slow
 
 
@@ -37,7 +39,7 @@ def test_fit_pose_recovers_light_position(tmp_path):
 def test_find_object_index():
     from pathtracerpython_tpu.apps.fit_pose import find_object_index
 
-    idx = find_object_index("/root/reference/objs/cornellroom.sdl", "cube")
+    idx = find_object_index(cornell_sdl(), "cube")
     assert idx >= 0
 
 

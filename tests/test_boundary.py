@@ -389,8 +389,7 @@ def test_coplanar_contact_does_not_blend():
     face's edges must keep the FLOOR as the blended front record: the
     coplanar near-miss ties the floor's t to the ulp, and before the
     F_TIE_EPS bias the winner was a platform/fusion coin flip that
-    flipped a whole band-width ring of pixels between the two materials
-    (measured on the v5e, BENCHLOG_r3 r3_soft_coplanar)."""
+    flipped a whole band-width ring of pixels between the two materials."""
     from pathtracerpython_tpu.diff.boundary import IMAX, soft_hits_sweep
     from pathtracerpython_tpu.ops.camera import make_primary_rays
     from pathtracerpython_tpu.scene.obj import mesh_from_arrays

@@ -107,23 +107,10 @@ def test_sharded_render_flag(cornell_sdl, tmp_path):
     assert os.path.exists(out)
 
 
-def test_nee_knob_flags(cornell_sdl, tmp_path):
-    """Round-4 NEE knobs parse and render (gates resolve them off on a
-    32-triangle scene — the flags must still round-trip into the
-    config)."""
-    out = str(tmp_path / "o.png")
-    rc = main([
-        cornell_sdl, "--out", out, "-r", "1", "-b", "2", "--quiet",
-        "--sort-nee", "on", "--nee-cache", "on",
-    ])
-    assert rc == 0
-    assert os.path.exists(out)
-
-
 def test_chunked_progress_lines(cornell_sdl, tmp_path, capsys):
-    """--chunk-spp prints one status line per chunk (VERDICT r4 task 8 —
-    the TPU-batch analogue of the reference's tqdm bars,
-    /root/reference/main.py:199-224) and --quiet silences them."""
+    """--chunk-spp prints one status line per chunk (the batched analogue
+    of the reference's tqdm bars, main.py:199-224) and --quiet silences
+    them."""
     out = str(tmp_path / "o.png")
     rc = main([
         cornell_sdl, "--out", out, "-r", "8", "-b", "1",
@@ -143,12 +130,3 @@ def test_chunked_progress_lines(cornell_sdl, tmp_path, capsys):
     assert rc == 0
     assert capsys.readouterr().out == ""
 
-
-def test_nee_hint_flag(cornell_sdl, tmp_path):
-    out = str(tmp_path / "o.png")
-    rc = main([
-        cornell_sdl, "--out", out, "-r", "1", "-b", "2", "--quiet",
-        "--nee-hint", "on",
-    ])
-    assert rc == 0
-    assert os.path.exists(out)

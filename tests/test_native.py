@@ -13,6 +13,7 @@ from pathtracerpython_tpu.scene.native import (
     morton_argsort_native,
     native_available,
 )
+from pathtracerpython_tpu.scene import cornell_sdl
 from pathtracerpython_tpu.scene.obj import load_obj
 
 needs_native = pytest.mark.skipif(
@@ -22,7 +23,10 @@ needs_native = pytest.mark.skipif(
 
 @needs_native
 @pytest.mark.parametrize(
-    "path", sorted(glob.glob("/root/reference/objs/*.obj"))
+    "path",
+    sorted(glob.glob(os.path.join(
+        os.path.dirname(cornell_sdl()), "*.obj"
+    ))),
 )
 def test_native_obj_parity(path):
     py = load_obj(path)

@@ -28,6 +28,7 @@ pytestmark = pytest.mark.slow
 from pathtracerpython_tpu.ops.camera import make_primary_rays
 from pathtracerpython_tpu.render.config import RenderConfig
 from pathtracerpython_tpu.render.integrator import render_rays
+from pathtracerpython_tpu.scene import cornell_sdl
 from test_boundary import BETA, make_occluder_scene, scene_loss
 
 
@@ -92,7 +93,7 @@ def _cube_loss_fn(cornell, cfg):
     from pathtracerpython_tpu.diff.transforms import transform_object
 
     scene, o, d, pids = cornell
-    idx = find_object_index("/root/reference/objs/cornellroom.sdl", "cube")
+    idx = find_object_index(cornell_sdl(), "cube")
     key = jax.random.PRNGKey(0)
     target = render_rays(o, d, pids, scene, cfg, key)
 

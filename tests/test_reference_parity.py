@@ -115,8 +115,10 @@ def test_baseline_config0_shape(tmp_path):
     if not goldens:
         pytest.skip("no 128x128 goldens generated")
 
+    from pathtracerpython_tpu.scene import cornell_sdl
+
     sdl_dir = tmp_path / "objs"
-    shutil.copytree("/root/reference/objs", sdl_dir)
+    shutil.copytree(os.path.dirname(cornell_sdl()), sdl_dir)
     sdl = sdl_dir / "cornellroom.sdl"
     text = sdl.read_text().replace("size 40 40", "size 128 128")
     assert "size 128 128" in text

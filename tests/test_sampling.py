@@ -3,15 +3,26 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from reference_oracle import import_reference
 
 from pathtracerpython_tpu.ops import sampling
 
-ref_utils, ref_scene_reader, ref_main, ref_vector = import_reference()
+@pytest.fixture(scope="module")
+def reference():
+    """The reference program's modules, imported when a test asks for
+    them; the test skips where the program is not installed."""
+    global ref_utils, ref_scene_reader, ref_main, ref_vector
+    try:
+        ref_utils, ref_scene_reader, ref_main, ref_vector = (
+            import_reference()
+        )
+    except ImportError as e:
+        pytest.skip(f"reference program not importable: {e}")
 
 
-def test_rotation_about_y_matches_reference_rotate():
+def test_rotation_about_y_matches_reference_rotate(reference):
     rng = np.random.default_rng(2)
     for _ in range(50):
         angle = rng.uniform(0, np.pi)
@@ -22,7 +33,7 @@ def test_rotation_about_y_matches_reference_rotate():
         np.testing.assert_allclose(ours, ref, atol=1e-6)
 
 
-def test_rotate_frame_reference_matches():
+def test_rotate_frame_reference_matches(reference):
     rng = np.random.default_rng(3)
     for _ in range(50):
         n = rng.normal(size=3)
@@ -38,7 +49,7 @@ def test_rotate_frame_reference_matches():
         np.testing.assert_allclose(ours, ref, atol=1e-5)
 
 
-def test_pick_light_triangle_matches_reference_cdf(monkeypatch):
+def test_pick_light_triangle_matches_reference_cdf(reference, monkeypatch):
     """Drive the reference's pick_random_triangle with known uniforms and
     compare indices. The reference draws uniform(0, sum(areas)); ours takes
     u in [0,1) and scales — patch its `uniform` to return our u * total."""

@@ -1,7 +1,8 @@
 """Golden tests for SDL/OBJ parsing against the reference Cornell scene.
 
-Expected values derive from /root/reference/objs/cornellroom.sdl and the
-reference parser semantics (scene_reader.py) — 7 objects (30 triangles) plus a
+Expected values derive from the packaged Cornell box
+(``pathtracerpython_tpu/scene/cornell/cornellroom.sdl``) and the reference
+parser semantics (scene_reader.py) — 7 objects (30 triangles) plus a
 2-triangle light, materials as listed in the SDL.
 """
 

@@ -1,6 +1,7 @@
 """Checkpoint/resume, metrics, profiling utilities."""
 
 import numpy as np
+import pytest
 
 from pathtracerpython_tpu.render.config import RenderConfig
 from pathtracerpython_tpu.render.integrator import render
@@ -86,20 +87,46 @@ def test_progressive_compose_with_sharded_renderer(cornell_scene, tmp_path):
     )
 
 
-def test_compile_cache_helper(tmp_path):
-    """TPU-gated by default (CPU AOT entries can SIGILL-mismatch hosts);
-    an explicit path forces it on any backend."""
+@pytest.fixture
+def restore_cache_config():
     import jax
 
-    from pathtracerpython_tpu.utils.compile_cache import (
-        enable_compilation_cache,
-    )
+    saved = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", saved)
 
-    if jax.default_backend() != "tpu":
-        assert enable_compilation_cache() is None
-    d = str(tmp_path / "cache")
-    assert enable_compilation_cache(d) == d
+
+def test_compile_cache_env_dir_wins(tmp_path, monkeypatch,
+                                    restore_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    the helper sets no other one in code."""
+    import jax
+
+    from pathtracerpython_tpu.utils import compile_cache
+
+    d = str(tmp_path / "env_cache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.cache_dir() == d
+    assert compile_cache.enable_compilation_cache() == d
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_helper(monkeypatch, restore_cache_config):
+    """Unset, the cache is <checkout>/.jax_cache: a fixed path (no
+    temporary name, process id or time in it) that git ignores."""
     import os
 
-    assert os.path.isdir(d)
-    assert jax.config.jax_compilation_cache_dir == d
+    import jax
+
+    from pathtracerpython_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    assert compile_cache.cache_dir() == want
+    assert compile_cache.enable_compilation_cache() == want
+    assert jax.config.jax_compilation_cache_dir == want
+    assert os.path.isdir(want)
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
